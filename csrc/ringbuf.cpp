@@ -4,7 +4,7 @@
 // (feature vector + ROI bytes) while the dispatch thread consumes batches to
 // feed the device. The reference has no such component (its loop is
 // single-threaded, SURVEY.md section 5); this is the host-side runtime piece
-// that lets MediaPipe latency overlap with TPU dispatch.
+// that lets MediaPipe latency overlap with device dispatch.
 //
 // Design: fixed-capacity power-of-two slot array, each slot a fixed-size
 // record (header + payload). Producer writes then publishes by storing the

@@ -1,11 +1,11 @@
-"""CTC dictionary scoring at open-vocabulary scale (VERDICT r2 item 5).
+"""CTC dictionary scoring at open-vocabulary scale.
 
-Measures, on the real TPU: time to score one clip against N-word
+Measures, on the accelerator: time to score one clip against N-word
 dictionaries (N = 100 / 1k / 10k / 20k), one-shot vmapped sweep vs
 chunk_words chunked sweeps, plus device memory stats where the runtime
-exposes them. Results -> docs/CTC_PERF.md.
+exposes them.
 
-Usage: PYTHONPATH=.:$PYTHONPATH python scripts/bench_ctc_dict.py
+Usage: python scripts/bench_ctc_dict.py
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from silent_speech_tpu.infer.ctc_decode import CTCDecoder, Dictionary
-from silent_speech_tpu.models import ctc_model
+from silent_speech.infer.ctc_decode import CTCDecoder, Dictionary
+from silent_speech.models import ctc_model
 
 
 def synth_words(n: int, seed: int = 0) -> list[str]:

@@ -1,9 +1,8 @@
 """Reference-protocol (B=16) training: per-step dispatch vs steps_per_dispatch.
 
-VERDICT r4 item 2: at B=16 the official train loop is dispatch/latency-bound
-(~3 ms of compute per step + a host round trip per step to fetch metrics).
-TrainConfig.steps_per_dispatch=K scans K optimizer steps over the
-HBM-resident dataset inside ONE jit (train/step.make_multi_train_step, same
+At B=16 the official train loop pays a host round trip per step to fetch
+metrics. TrainConfig.steps_per_dispatch=K scans K optimizer steps over the
+device-resident dataset inside ONE jit (train/step.make_multi_train_step, same
 trajectory as the per-step loop — pinned by tests/test_train.py). This
 script measures the real loop cost, host syncs included, for K = 1 (the
 per-step path), 8, 32, and whole-epoch.
@@ -25,9 +24,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from silent_speech_tpu.data.augment import OFFICIAL_AUGMENT
-from silent_speech_tpu.models import bigru as model
-from silent_speech_tpu.train.step import (
+from silent_speech.data.augment import OFFICIAL_AUGMENT
+from silent_speech.models import bigru as model
+from silent_speech.train.step import (
     StepConfig,
     make_multi_train_step,
     make_optimizer,

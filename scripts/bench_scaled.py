@@ -5,8 +5,8 @@ vocab, higher-res ROI)". This script builds that workload — hidden=1024,
 3 GRU layers, 512-dim features, 1000-word vocab, 96x192 ROI (49.2 M params)
 — and measures:
 
-1. single-chip train-step throughput (f32 + bf16) on the real TPU;
-2. single-chip inference throughput (bf16 serving);
+1. single-GPU train-step throughput (f32 + bf16);
+2. single-GPU inference throughput (bf16 serving);
 3. the DP+TP sharded step on an 8-virtual-device ('data'=4, 'model'=2) CPU
    mesh: executes, loss finite, and the GRU/head params are actually laid
    out on the 'model' axis (sharding asserted) — proving the TP hooks carry
@@ -32,8 +32,8 @@ import jax.numpy as jnp
 from jax import lax
 import optax
 
-from silent_speech_tpu.models import bigru as model
-from silent_speech_tpu.train.step import make_optimizer, smoothed_cross_entropy
+from silent_speech.models import bigru as model
+from silent_speech.train.step import make_optimizer, smoothed_cross_entropy
 
 SCALED = dict(x_dim=512, num_classes=1000, use_roi=True, roi_emb=64,
               hidden=1024, gru_layers=3, head_hidden=512, roi_h=96, roi_w=192)
@@ -82,7 +82,7 @@ def bench_train_scaled(dtype, iters=10):
     return dt, n_params(params)
 
 
-def bench_infer_scaled(dtype, iters=20, roi_impl="grouped"):
+def bench_infer_scaled(dtype, iters=20):
     mcfg = model.BiGRUConfig(**SCALED)
     params = model.init_params(jax.random.PRNGKey(0), mcfg)
     rng = np.random.default_rng(0)
@@ -95,8 +95,7 @@ def bench_infer_scaled(dtype, iters=20, roi_impl="grouped"):
     def run(X, n):
         def body(c, _):
             logits = model.live_forward(params, mcfg, c, L, R,
-                                        compute_dtype=dtype,
-                                        roi_impl=roi_impl)
+                                        compute_dtype=dtype)
             eps = (logits[0, 0] * 1e-30).astype(c.dtype)
             return c + eps, logits[0, 0]
         c, outs = lax.scan(body, X, None, length=n)
@@ -109,11 +108,10 @@ def bench_infer_scaled(dtype, iters=20, roi_impl="grouped"):
     return (time.perf_counter() - t0) / iters
 
 
-def bench_cnn_share(dtype, iters=20, roi_impl="grouped"):
+def bench_cnn_share(dtype, iters=20):
     """Time the scaled-geometry ROI-CNN embedding ALONE (96x192, B*T frames)
-    — the evidence for the fused-kernel decision at this shape: the CNN is
-    ~11M MACs/frame vs the h=1024 3-layer GRU's ~48M, so its e2e share
-    bounds what any CNN kernel can buy (VERDICT r4 item 5)."""
+    — the CNN is ~11M MACs/frame vs the h=1024 3-layer GRU's ~48M, so its
+    e2e share bounds what any CNN kernel can buy at this shape."""
     mcfg = model.BiGRUConfig(**SCALED)
     params = model.init_params(jax.random.PRNGKey(0), mcfg)
     rng = np.random.default_rng(0)
@@ -124,7 +122,7 @@ def bench_cnn_share(dtype, iters=20, roi_impl="grouped"):
     def run(R, n):
         def body(c, _):
             e = model.roi_embedding(params["roi_cnn"], c, standardize=False,
-                                    roi_impl=roi_impl, compute_dtype=dtype)
+                                    compute_dtype=dtype)
             eps = (e[0, 0, 0] * 0).astype(c.dtype)
             return c + eps, e[0, 0, 0]
         c, outs = lax.scan(body, R, None, length=n)
@@ -141,9 +139,9 @@ def mesh_check():
     """DP+TP sharded step for the scaled model on 8 virtual CPU devices."""
     from jax.sharding import PartitionSpec as P
 
-    from silent_speech_tpu.data.augment import OFFICIAL_AUGMENT
-    from silent_speech_tpu.parallel import make_mesh, make_sharded_train_step
-    from silent_speech_tpu.train.step import StepConfig
+    from silent_speech.data.augment import OFFICIAL_AUGMENT
+    from silent_speech.parallel import make_mesh, make_sharded_train_step
+    from silent_speech.train.step import StepConfig
 
     cpus = jax.devices("cpu")
     assert len(cpus) >= 8, (
@@ -181,7 +179,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh-only", action="store_true")
     args = ap.parse_args()
-    if args.mesh_only or jax.default_backend() != "tpu":
+    if args.mesh_only or jax.default_backend() != "gpu":
         mesh_check()
         return
     out = {}
@@ -191,17 +189,16 @@ def main():
                                "clips_per_sec": round(B / dt, 1)}
         print(f"scaled train {tag} ({nparams/1e6:.1f}M params, B={B}): "
               f"{dt*1e3:.2f} ms/step, {B/dt:.0f} clips/s", flush=True)
-    for roi_impl in ("grouped", "xla"):
-        dt = bench_infer_scaled(jnp.bfloat16, roi_impl=roi_impl)
-        out[f"infer_bf16_{roi_impl}"] = {"batch_ms": round(dt * 1e3, 2),
-                                         "clips_per_sec": round(B / dt, 1)}
-        print(f"scaled infer bf16/{roi_impl} (B={B}): {dt*1e3:.2f} ms, "
-              f"{B/dt:.0f} clips/s", flush=True)
-        for dtype, tag in ((jnp.bfloat16, "bf16"), (jnp.float32, "f32")):
-            dtc = bench_cnn_share(dtype, roi_impl=roi_impl)
-            out[f"cnn_only_{tag}_{roi_impl}"] = {"batch_ms": round(dtc * 1e3, 2)}
-            print(f"  ROI-CNN alone ({tag}): {dtc*1e3:.2f} ms "
-                  f"({100*dtc/dt:.0f}% of bf16 e2e)", flush=True)
+    dt = bench_infer_scaled(jnp.bfloat16)
+    out["infer_bf16"] = {"batch_ms": round(dt * 1e3, 2),
+                         "clips_per_sec": round(B / dt, 1)}
+    print(f"scaled infer bf16 (B={B}): {dt*1e3:.2f} ms, "
+          f"{B/dt:.0f} clips/s", flush=True)
+    for dtype, tag in ((jnp.bfloat16, "bf16"), (jnp.float32, "f32")):
+        dtc = bench_cnn_share(dtype)
+        out[f"cnn_only_{tag}"] = {"batch_ms": round(dtc * 1e3, 2)}
+        print(f"  ROI-CNN alone ({tag}): {dtc*1e3:.2f} ms "
+              f"({100*dtc/dt:.0f}% of bf16 e2e)", flush=True)
     print(json.dumps(out))
 
 

@@ -1,9 +1,9 @@
 """Production-scale end-to-end soak: 10k-clip corpus, full official pipeline.
 
 Generates a 10,000-clip synthetic corpus (10 words x 1000, ROI included) in
-the reference .npz layout, then runs the real production path on TPU:
+the reference .npz layout, then runs the real production path on the GPU:
 
-1. corpus scan + native parallel load into the HBM-resident dataset
+1. corpus scan + native parallel load into the device-resident dataset
    (ingest clips/s measured);
 2. official training, B=256 bf16, a few epochs (wall/epoch measured);
 3. the streaming offline evaluator over all 10k clips through the live
@@ -34,10 +34,10 @@ def main():
     ap.add_argument("--dir", default="")
     args = ap.parse_args()
 
-    from silent_speech_tpu.core.config import TrainConfig
-    from silent_speech_tpu.data.synthetic import WORDS, generate_corpus
-    from silent_speech_tpu.infer import Predictor, evaluate_dataset
-    from silent_speech_tpu.train import train
+    from silent_speech.core.config import TrainConfig
+    from silent_speech.data.synthetic import WORDS, generate_corpus
+    from silent_speech.infer import Predictor, evaluate_dataset
+    from silent_speech.train import train
 
     root = args.dir or tempfile.mkdtemp(prefix="sst_soak_")
     corpus = os.path.join(root, "clips_npz")
@@ -64,8 +64,7 @@ def main():
     t_train = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    pred = Predictor.from_checkpoint(
-        ckpt, compute_dtype="bfloat16", roi_impl="grouped")
+    pred = Predictor.from_checkpoint(ckpt, compute_dtype="bfloat16")
     ev = evaluate_dataset(pred, corpus, batch_size=256, verbose=True)
     t_eval = time.perf_counter() - t0
 

@@ -1,4 +1,4 @@
-"""bf16 serving-mode guardrail (VERDICT r1 item 7).
+"""bf16 serving-mode guardrail.
 
 BASELINE.md advertises a bfloat16 serving mode (~44.7k clips/s). This pins its
 fidelity contract on a *trained* checkpoint: the bf16 live forward must agree
@@ -12,16 +12,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from silent_speech_tpu.core.config import TrainConfig
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu.infer.predictor import Predictor
-from silent_speech_tpu.models import bigru as model
-from silent_speech_tpu.train import train
+from silent_speech.core.config import TrainConfig
+from silent_speech.data.synthetic import generate_corpus
+from silent_speech.infer.predictor import Predictor
+from silent_speech.models import bigru as model
+from silent_speech.train import train
 
 # bf16 has ~8 bits of mantissa; on this 10-logit head the observed drift on a
 # trained model is <0.1 (CPU backend and on-chip alike). 0.15 = observed
 # ceiling + 50% slack — a regression to 0.2+ now fails loudly instead of
-# hiding under the old 0.35 blanket (VERDICT r2 weak #4).
+# hiding under the old 0.35 blanket.
 LOGIT_TOL = 0.15
 
 
@@ -40,8 +40,8 @@ def trained(tmp_path_factory):
 
 
 def _corpus_batch(corpus, mcfg, max_t):
-    from silent_speech_tpu.core.schema import load_clip
-    from silent_speech_tpu.data.corpus import scan_corpus
+    from silent_speech.core.schema import load_clip
+    from silent_speech.data.corpus import scan_corpus
 
     index = scan_corpus(corpus, verbose=False)
     Xs, Ls, Rs = [], [], []
@@ -84,61 +84,5 @@ def test_predictor_bf16_serving_mode(trained):
     X, L, R = _corpus_batch(corpus, p32.cfg, max_t=p32.max_t)
     a = p32.predict_batch(X, L, R)
     b = p16.predict_batch(X, L, R)
-    np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
-    assert np.abs(a - b).max() < LOGIT_TOL
-
-
-def test_fused_cnn_serving_modes_on_trained_model(trained):
-    """roi_impl='fused' on a TRAINED model: f32 must hold the 1e-3 logit
-    bar vs the default path; fused-bf16 must hold the bf16 guardrail
-    (argmax equal + LOGIT_TOL) — the same contract the XLA bf16 mode pins."""
-    result, corpus, _ = trained
-    params, mcfg = result["params"], result["model_config"]
-    X, L, R = _corpus_batch(corpus, mcfg, max_t=48)
-    args = (jnp.asarray(X), jnp.asarray(L), jnp.asarray(R))
-
-    f32 = np.asarray(model.live_forward(params, mcfg, *args))
-    fused = np.asarray(model.live_forward(params, mcfg, *args,
-                                          roi_impl="fused"))
-    np.testing.assert_array_equal(f32.argmax(-1), fused.argmax(-1))
-    assert np.abs(f32 - fused).max() < 1e-3
-
-    fused16 = np.asarray(model.live_forward(
-        params, mcfg, *args, roi_impl="fused", compute_dtype=jnp.bfloat16))
-    np.testing.assert_array_equal(f32.argmax(-1), fused16.argmax(-1))
-    assert np.abs(f32 - fused16).max() < LOGIT_TOL
-
-
-def test_q8_fused_serving_mode_on_trained_model(trained):
-    """roi_variant='tiled3_q8' (int8 fused CNN, ops/pallas_cnn2.py) on a
-    TRAINED model: the quantized serving mode must hold the same guardrail
-    contract as bf16 — argmax equal to f32 on every corpus clip plus a
-    bounded logit drift. int8 quantization noise (8-bit weights + per-frame
-    8-bit activations) lands well under the bf16 bound in practice
-    (observed ~1e-2 class); the shared LOGIT_TOL is the regression bar."""
-    result, corpus, _ = trained
-    params, mcfg = result["params"], result["model_config"]
-    X, L, R = _corpus_batch(corpus, mcfg, max_t=48)
-    args = (jnp.asarray(X), jnp.asarray(L), jnp.asarray(R))
-
-    f32 = np.asarray(model.live_forward(params, mcfg, *args))
-    q8 = np.asarray(model.live_forward(params, mcfg, *args,
-                                       roi_impl="fused",
-                                       roi_variant="tiled3_q8"))
-    np.testing.assert_array_equal(f32.argmax(-1), q8.argmax(-1))
-    drift = np.abs(f32 - q8).max()
-    assert drift < LOGIT_TOL, f"q8 logit drift {drift:.3f} > {LOGIT_TOL}"
-
-
-def test_predictor_q8_serving_mode(trained):
-    """Predictor(roi_variant='tiled3_q8') is the supported serving switch
-    (packs the int8 operands at construction, same as every variant)."""
-    _, corpus, ckpt = trained
-    p32 = Predictor.from_checkpoint(ckpt)
-    pq8 = Predictor.from_checkpoint(ckpt, roi_impl="fused",
-                                    roi_variant="tiled3_q8")
-    X, L, R = _corpus_batch(corpus, p32.cfg, max_t=p32.max_t)
-    a = p32.predict_batch(X, L, R)
-    b = pq8.predict_batch(X, L, R)
     np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
     assert np.abs(a - b).max() < LOGIT_TOL

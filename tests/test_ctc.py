@@ -2,12 +2,13 @@
 numpy port of the reference forward algorithm (inactive/train_model.py:167-189)."""
 
 import numpy as np
+import pytest
 import torch
 import torch.nn.functional as F
 
 import jax.numpy as jnp
 
-from silent_speech_tpu.ops.ctc import (
+from silent_speech.ops.ctc import (
     ctc_loss,
     ctc_word_logprob,
     ctc_word_logprobs_batch,
@@ -124,13 +125,13 @@ def test_dictionary_batch_scoring(rng):
 
 
 def test_ctc_dict_chunked_equals_oneshot(rng):
-    """chunk_words=N (the open-vocabulary HBM bound, docs/CTC_PERF.md) must
+    """chunk_words=N (the open-vocabulary device-memory bound) must
     reproduce the one-shot vmapped sweep exactly, including the padded
     ragged tail chunk."""
     import jax
 
-    from silent_speech_tpu.infer.ctc_decode import CTCDecoder, Dictionary
-    from silent_speech_tpu.models import ctc_model
+    from silent_speech.infer.ctc_decode import CTCDecoder, Dictionary
+    from silent_speech.models import ctc_model
 
     params = ctc_model.init_params(jax.random.PRNGKey(0), 180, hidden=16,
                                    gru_layers=2, roi_emb=4)
@@ -153,3 +154,59 @@ def test_ctc_dict_chunked_equals_oneshot(rng):
 
     with pytest.raises(ValueError, match="chunk_words"):
         CTCDecoder(params, d, max_t=24, chunk_words=-1)
+
+
+@pytest.mark.parametrize("align", [1, 8, 16, 128])
+@pytest.mark.parametrize("words", [
+    [[1], [2, 3], [4, 4, 5]],
+    [[7, 8, 9, 10, 11, 12, 13, 14, 15], [3, 3]],
+    [[20, 21, 22, 23, 24, 25, 26, 1, 2, 3, 4, 5]],
+])
+def test_scores_identical_across_lattice_paddings(rng, align, words):
+    """Padded lattice states never reach the real ones, so every padding of
+    the state axis gives the same scores as the reference spec."""
+    from silent_speech.ops.ctc import _ctc_nll_single
+
+    T, C = 30, 27
+    lp = _rand_log_probs(rng, 1, T, C)[0]
+    L = max(len(w) for w in words)
+    ids = np.zeros((len(words), L), np.int32)
+    for i, w in enumerate(words):
+        ids[i, :len(w)] = w
+    lens = np.asarray([len(w) for w in words], np.int32)
+    lp_b = jnp.asarray(np.broadcast_to(lp, (len(words), T, C)))
+    got = -np.asarray(_ctc_nll_single(
+        lp_b, jnp.full((len(words),), T, jnp.int32), jnp.asarray(ids),
+        jnp.asarray(lens), 0, align))
+    base = -np.asarray(_ctc_nll_single(
+        lp_b, jnp.full((len(words),), T, jnp.int32), jnp.asarray(ids),
+        jnp.asarray(lens), 0, 1))
+    np.testing.assert_array_equal(got, base)
+    for i, w in enumerate(words):
+        np.testing.assert_allclose(got[i], _np_word_logprob(lp, w),
+                                   rtol=1e-4, atol=1e-3)
+
+
+def test_lattice_pad():
+    from silent_speech.ops.ctc import LATTICE_ALIGN, lattice_pad
+
+    assert LATTICE_ALIGN == 8
+    assert [lattice_pad(s) for s in (1, 7, 8, 9, 25)] == [8, 8, 8, 16, 32]
+    assert lattice_pad(25, 128) == 128
+
+
+@pytest.mark.parametrize("stats,want", [
+    (None, 1 << 30),
+    ({}, 1 << 30),
+    ({"bytes_limit": 80 * 2 ** 30}, int(80 * 2 ** 30 * 0.05)),
+])
+def test_lattice_budget_follows_device_memory(stats, want):
+    """The dictionary sweep's chunk bound is a share of the device's
+    reported memory, or 1 GiB where the device reports none (the CPU)."""
+    from silent_speech.infer.ctc_decode import lattice_budget_bytes
+
+    class Dev:
+        def memory_stats(self):
+            return stats
+
+    assert lattice_budget_bytes(Dev()) == want

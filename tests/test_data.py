@@ -6,17 +6,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from silent_speech_tpu.core.schema import (
+from silent_speech.core.schema import (
     Clip, clip_filename, fix_dim, load_clip,
     parse_filename_label, pad_trim_time, save_clip,
 )
-from silent_speech_tpu.data import (
+from silent_speech.data import (
     OFFICIAL_AUGMENT, augment_batch, build_device_dataset, build_label_maps,
     epoch_batches, filter_modal_dim, inverse_frequency_weights, scan_corpus,
     split_by_label, top_confusions,
 )
-from silent_speech_tpu.data.augment import AugmentConfig, drop_frames, mixup, time_warp
-from silent_speech_tpu.data.synthetic import generate_corpus
+from silent_speech.data.augment import AugmentConfig, drop_frames, mixup, time_warp
+from silent_speech.data.synthetic import generate_corpus
 
 
 def test_npz_roundtrip(tmp_path, rng):
@@ -206,7 +206,7 @@ def test_time_warp_slowdown_stretches_then_truncates(rng):
 def test_drop_frames_all_positions_for_reduced(rng):
     """REDUCED_AUGMENT samples drops from every position (incl. endpoints),
     as random.sample(range(T)) in train_reduced.py:112-114."""
-    from silent_speech_tpu.data.augment import REDUCED_AUGMENT
+    from silent_speech.data.augment import REDUCED_AUGMENT
     import dataclasses as _dc
 
     T = 20
@@ -222,7 +222,7 @@ def test_drop_frames_all_positions_for_reduced(rng):
 
 
 def test_mixup_alpha_zero_is_identity(rng):
-    from silent_speech_tpu.data.augment import mixup as _mixup
+    from silent_speech.data.augment import mixup as _mixup
 
     X = jnp.asarray(rng.standard_normal((4, 10, 6)).astype(np.float32))
     y = jax.nn.one_hot(jnp.asarray([0, 1, 2, 3]), 4)

@@ -4,8 +4,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from silent_speech_tpu.core.landmarks import FEATURE_DIM, LIP_ORDER
-from silent_speech_tpu.ops.features import (
+from silent_speech.core.landmarks import FEATURE_DIM, LIP_ORDER
+from silent_speech.ops.features import (
     extract_features_batched,
     extract_features_frame,
     lip83_features_batched,
@@ -82,7 +82,7 @@ def test_lip83_host_frame_matches_batched(rng):
     intermediates, the kernel is pure f32 — measured divergence ~4e-7
     relative) — this is what lets the capture loop avoid a per-frame jitted
     dispatch without changing the streaming engine's input."""
-    from silent_speech_tpu.ops.features import lip83_features_frame_host
+    from silent_speech.ops.features import lip83_features_frame_host
 
     lms = _random_landmarks(rng, 2, 4)
     feats, openness = lip83_features_batched(jnp.asarray(lms))

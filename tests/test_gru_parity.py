@@ -13,8 +13,8 @@ import torch.nn as nn
 
 import jax.numpy as jnp
 
-from silent_speech_tpu.core.torch_import import import_gru_stack
-from silent_speech_tpu.ops.gru import bigru, flip_padded, gru_layer_single_direction
+from silent_speech.core.torch_import import import_gru_stack
+from silent_speech.ops.gru import bigru, flip_padded, gru_layer_single_direction
 
 
 def _torch_packed_gru(tgru, x, lengths):
@@ -94,8 +94,8 @@ def test_padded_outputs_are_zero(rng):
 
 def test_chunked_equals_full_scan(rng):
     """Chunked carry hand-off == one full-length scan (long-context path)."""
-    from silent_speech_tpu.ops.gru import unidirectional_gru_chunked
-    from silent_speech_tpu.ops.nn import gru_dir_init
+    from silent_speech.ops.gru import unidirectional_gru_chunked
+    from silent_speech.ops.nn import gru_dir_init
     import jax
 
     B, T, D, H = 3, 50, 8, 16
@@ -120,7 +120,7 @@ def test_gru_parity_random_config_sweep(rng):
     (layers, hidden, D, B, T, bidirectional) configurations."""
     import torch
 
-    from silent_speech_tpu.core.torch_import import import_gru_stack
+    from silent_speech.core.torch_import import import_gru_stack
 
     r = np.random.default_rng(123)
     for _ in range(8):

@@ -1,8 +1,8 @@
 """Importing the package must not touch any jax backend.
 
 Round-1 regression: a module-level ``jnp.asarray`` in ops/roi.py eagerly
-dispatched on the default (TPU) backend at import time, so a libtpu env flake
-failed the driver's CPU-only multichip dryrun. The invariant pinned here:
+dispatched on the default accelerator backend at import time, so a broken
+accelerator install failed the CPU-only multichip dryrun. The invariant pinned here:
 importing every module in the package initializes zero jax backends and
 creates zero device arrays.
 
@@ -20,11 +20,11 @@ _CHECK = r"""
 import importlib
 import pkgutil
 
-import silent_speech_tpu
+import silent_speech
 
-mods = ["silent_speech_tpu"]
-for m in pkgutil.walk_packages(silent_speech_tpu.__path__,
-                               prefix="silent_speech_tpu."):
+mods = ["silent_speech"]
+for m in pkgutil.walk_packages(silent_speech.__path__,
+                               prefix="silent_speech."):
     mods.append(m.name)
 for name in mods:
     importlib.import_module(name)

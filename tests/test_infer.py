@@ -6,9 +6,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from silent_speech_tpu.core.config import StreamConfig
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu.infer import (
+from silent_speech.core.config import StreamConfig
+from silent_speech.data.synthetic import generate_corpus
+from silent_speech.infer import (
     CarryStreamingGRU,
     CTCDecoder,
     Dictionary,
@@ -19,14 +19,14 @@ from silent_speech_tpu.infer import (
     topk_from_logits,
     trim_silence,
 )
-from silent_speech_tpu.models import bigru as model
-from silent_speech_tpu.models import ctc_model
-from silent_speech_tpu.models.variants import (
+from silent_speech.models import bigru as model
+from silent_speech.models import ctc_model
+from silent_speech.models.variants import (
     init_unigru_classifier,
     unigru_classifier_forward,
 )
-from silent_speech_tpu.ops.nn import dense
-from silent_speech_tpu.train.checkpoint import reference_meta, save_checkpoint
+from silent_speech.ops.nn import dense
+from silent_speech.train.checkpoint import reference_meta, save_checkpoint
 
 
 def _make_predictor(tmp_path, use_roi=True):
@@ -116,7 +116,7 @@ def test_evaluate_dataset_structure(tmp_path):
 
 
 def test_evaluate_dataset_streams_bounded_chunks(tmp_path):
-    """Chunked streaming sweep == whole-corpus sweep (VERDICT r1 item 8):
+    """Chunked streaming sweep == whole-corpus sweep:
     host memory stays O(chunk_size) without changing any reported number."""
     corpus = tmp_path / "clips_big"
     generate_corpus(str(corpus), clips_per_word=3, seed=5)  # 30 clips
@@ -212,7 +212,7 @@ def test_predictor_warmup_precompiles_buckets():
     clip predict is cache-hot (no new compile)."""
     import jax
 
-    from silent_speech_tpu.models import bigru as model
+    from silent_speech.models import bigru as model
 
     cfg = model.BiGRUConfig(x_dim=12, num_classes=3, use_roi=True, hidden=8,
                             roi_emb=4, head_hidden=8)
@@ -228,64 +228,29 @@ def test_predictor_warmup_precompiles_buckets():
     assert p._fwd._cache_size() == misses0
 
 
-def test_predictor_auto_guards_fused_geometry(monkeypatch, rng):
-    """'auto' on a (simulated) TPU backend resolves to 'fused' only for the
-    reference 48x96 ROI; other geometries fall back to 'grouped' (the fused
-    packing is 48x96-specific), and an explicit fused call on a wrong
-    geometry fails loudly."""
+def test_predictor_auto_guards_fused_geometry(rng):
+    """The ROI CNN serves every ROI geometry, not only 48x96; a setting
+    that named a removed kernel is refused instead of run in an
+    interpreter or ignored."""
     import jax
     import pytest
 
-    from silent_speech_tpu.models import bigru as model
-    from silent_speech_tpu.ops import pallas_gru
-    from silent_speech_tpu.ops.pallas_cnn2 import (
-        pack_roi_cnn_fused, roi_cnn_fused)
+    from silent_speech.models import bigru as model
 
-    monkeypatch.setattr(pallas_gru, "default_interpret", lambda: False)
     base = dict(x_dim=12, num_classes=3, use_roi=True, hidden=8,
                 roi_emb=4, head_hidden=8)
     labels = {0: "a", 1: "b", 2: "c"}
-    cfg = model.BiGRUConfig(**base)
-    params = model.init_params(jax.random.PRNGKey(0), cfg)
-    p = Predictor(params=params, cfg=cfg, id_to_label=labels, max_t=20)
-    assert p.roi_impl == "fused"
-    assert p.gru_impl == "pallas"  # 'auto' on TPU: ~4% e2e, bit-identical
-    cfg2 = model.BiGRUConfig(roi_h=96, roi_w=192, **base)
-    p2 = Predictor(params=model.init_params(jax.random.PRNGKey(0), cfg2),
-                   cfg=cfg2, id_to_label=labels, max_t=20)
-    assert p2.roi_impl == "grouped"
+    for hw in ((48, 96), (96, 192)):
+        cfg = model.BiGRUConfig(roi_h=hw[0], roi_w=hw[1], **base)
+        p = Predictor(params=model.init_params(jax.random.PRNGKey(0), cfg),
+                      cfg=cfg, id_to_label=labels, max_t=20)
+        X = rng.standard_normal((2, 8, 12)).astype(np.float32)
+        L = np.array([8, 5], np.int32)
+        R = rng.integers(0, 256, (2, 8) + hw, dtype=np.uint8)
+        logits = p.predict_batch(X, L, R)
+        assert logits.shape == (2, 3) and np.isfinite(logits).all()
 
-    packed = pack_roi_cnn_fused(params["roi_cnn"])
-    roi = jnp.asarray(rng.integers(0, 256, (4, 96, 192), dtype=np.uint8))
-    with pytest.raises(ValueError, match="48x96"):
-        roi_cnn_fused(roi, packed, interpret=True)
-
-    # off-TPU (interpret backends) 'auto' falls back to the scan GRU — the
-    # Pallas kernel only interprets there
-    monkeypatch.setattr(pallas_gru, "default_interpret", lambda: True)
-    p3 = Predictor(params=params, cfg=cfg, id_to_label=labels, max_t=20)
-    assert p3.gru_impl == "scan" and p3.roi_impl == "xla"
-
-
-def test_predictor_fused_roi_impl_matches_default(rng):
-    """Predictor(roi_impl='fused') — the concrete-params pack happens once
-    in __post_init__ and rides the jit closure; predictions match the
-    default path."""
-    import jax
-
-    from silent_speech_tpu.models import bigru as model
-
-    cfg = model.BiGRUConfig(x_dim=12, num_classes=3, use_roi=True, hidden=8,
-                            roi_emb=4, head_hidden=8)
-    params = model.init_params(jax.random.PRNGKey(0), cfg)
-    labels = {0: "a", 1: "b", 2: "c"}
-    kw = dict(params=params, cfg=cfg, id_to_label=labels, max_t=20,
-              buckets=(20,))
-    base = Predictor(**kw)
-    fused = Predictor(roi_impl="fused", **kw)
-    feats = rng.standard_normal((9, 12)).astype(np.float32)
-    roi = rng.integers(0, 256, (9, 48, 96), dtype=np.uint8)
-    want = base.predict_arrays(feats, roi)
-    got = fused.predict_arrays(feats, roi)
-    assert got[0][0] == want[0][0]
-    assert abs(got[0][1] - want[0][1]) < 1e-4
+    for removed in ("roi_impl", "gru_impl", "roi_variant"):
+        with pytest.raises(TypeError, match=removed):
+            Predictor(params=p.params, cfg=cfg, id_to_label=labels, max_t=20,
+                      **{removed: "fused"})

@@ -4,14 +4,14 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from silent_speech_tpu.core.landmark_select import (
+from silent_speech.core.landmark_select import (
     EMA,
     Hysteresis,
     NOSE_SET,
     compute_selected_indices,
     expand_by_index_neighbors,
 )
-from silent_speech_tpu.ops.features import (
+from silent_speech.ops.features import (
     mouth83_features_batched,
     polygon_area,
     v3_features_batched,
@@ -31,7 +31,7 @@ def test_compute_selected_indices(rng):
     """Pins the exact reference rule (lower_face_record.py:36,48-62):
     cutoff = max-y over the nose-BOTTOM anchors + 0.003, cheek set = the
     dynamic scripts' own outline, nose set = the 47-entry fat set."""
-    from silent_speech_tpu.core.landmark_select import (
+    from silent_speech.core.landmark_select import (
         CHEEK_SET,
         CUT_MARGIN,
         NOSE_BOTTOM_FOR_CUTOFF,
@@ -81,7 +81,7 @@ def test_span_norm_dynamic_selection(rng):
     variable dims per selection (the source of mixed-dim corpora)."""
     import jax.numpy as jnp
 
-    from silent_speech_tpu.ops.features import (
+    from silent_speech.ops.features import (
         span_norm_feature_frame,
         span_norm_features_batched,
     )

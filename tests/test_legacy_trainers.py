@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu.train.legacy_loops import (
+from silent_speech.data.synthetic import generate_corpus
+from silent_speech.train.legacy_loops import (
     MLPQuickConfig,
     ReducedConfig,
     UniGRUConfig,
@@ -15,7 +15,7 @@ from silent_speech_tpu.train.legacy_loops import (
     trim_by_activity,
     zscore_per_clip,
 )
-from silent_speech_tpu.train import load_checkpoint
+from silent_speech.train import load_checkpoint
 
 
 def test_reduced_trainer(tmp_path):

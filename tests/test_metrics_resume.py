@@ -2,10 +2,10 @@
 
 import json
 
-from silent_speech_tpu.core.config import TrainConfig
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu.train import train
-from silent_speech_tpu.train.metrics import MetricsLogger, StageTimer
+from silent_speech.core.config import TrainConfig
+from silent_speech.data.synthetic import generate_corpus
+from silent_speech.train import train
+from silent_speech.train.metrics import MetricsLogger, StageTimer
 
 
 def test_metrics_logger(tmp_path):
@@ -53,20 +53,20 @@ def test_train_resume_continues(tmp_path):
     # improved on run 1's best, never regressed it (best_acc restarting at
     # 0.0 would let a worse epoch overwrite the best checkpoint)
     assert r2["best_acc"] >= r1["best_acc"]
-    from silent_speech_tpu.train.checkpoint import load_checkpoint
+    from silent_speech.train.checkpoint import load_checkpoint
 
     _, meta, _ = load_checkpoint(str(tmp_path / "m.ckpt"))
     assert float(meta["best_val_acc"]) == r2["best_acc"]
 
 
 def test_orbax_checkpoint_roundtrip_matches_npz(tmp_path):
-    """Both checkpoint backends round-trip identically (VERDICT r1 item 4)."""
+    """Both checkpoint backends round-trip identically."""
     import jax
     import numpy as np
 
-    from silent_speech_tpu.models import bigru as model
-    from silent_speech_tpu.train import make_optimizer
-    from silent_speech_tpu.train.checkpoint import (
+    from silent_speech.models import bigru as model
+    from silent_speech.train import make_optimizer
+    from silent_speech.train.checkpoint import (
         load_checkpoint,
         reference_meta,
         save_checkpoint,
@@ -105,7 +105,7 @@ def test_orbax_checkpoint_roundtrip_matches_npz(tmp_path):
 def test_train_orbax_format_resume_and_predict(tmp_path):
     """train(checkpoint_format='orbax') saves a loadable dir: resume works and
     the Predictor consumes it like an npz checkpoint."""
-    from silent_speech_tpu.infer.predictor import Predictor
+    from silent_speech.infer.predictor import Predictor
 
     corpus = tmp_path / "c"
     generate_corpus(str(corpus), clips_per_word=4, words=["yes", "no"], seed=3)

@@ -14,8 +14,8 @@ import torch.nn as nn
 
 import jax.numpy as jnp
 
-from silent_speech_tpu.core.torch_import import import_bigru_classifier
-from silent_speech_tpu.models import bigru as jmodel
+from silent_speech.core.torch_import import import_bigru_classifier
+from silent_speech.models import bigru as jmodel
 
 
 class _TorchRoiCNN(nn.Module):
@@ -133,10 +133,10 @@ def test_dual_forward_skew_exists(rng):
 def test_matmul_precision_knob_plumbs_through(rng):
     """matmul_precision='highest' is a no-op on the exact-f32 CPU backend —
     identical logits — and plumbs through forward/Predictor without error
-    (on TPU it is the strict parity mode; scripts/tpu_parity_check.py)."""
+    (on a GPU it turns off TF32; chip_smoke.py measures it there)."""
     import jax
 
-    from silent_speech_tpu.models import bigru as model
+    from silent_speech.models import bigru as model
 
     cfg = model.BiGRUConfig(x_dim=12, num_classes=4, use_roi=True,
                             hidden=16, roi_emb=8, head_hidden=8)

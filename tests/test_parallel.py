@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from silent_speech_tpu.data.augment import OFFICIAL_AUGMENT
-from silent_speech_tpu.models import bigru as model
-from silent_speech_tpu.parallel import (
+from silent_speech.data.augment import OFFICIAL_AUGMENT
+from silent_speech.models import bigru as model
+from silent_speech.parallel import (
     bigru_param_specs,
     make_mesh,
     make_sharded_infer_fn,
     make_sharded_train_step,
     shard_params,
 )
-from silent_speech_tpu.train.step import StepConfig, make_optimizer
+from silent_speech.train.step import StepConfig, make_optimizer
 
 
 def _setup(use_roi=True, num_classes=5):
@@ -127,7 +127,7 @@ def test_predictor_shard_matches_unsharded(cpu_mesh_devices, rng):
     """Predictor.shard (the eval-dataset mesh_shape= path) must reproduce the
     unsharded logits exactly, including on a ragged batch that needs
     data-axis padding."""
-    from silent_speech_tpu.infer.predictor import Predictor
+    from silent_speech.infer.predictor import Predictor
 
     mcfg, params = _setup()
     i2l = {i: w for i, w in enumerate(["a", "b", "c", "d", "e"])}
@@ -144,16 +144,16 @@ def test_predictor_shard_matches_unsharded(cpu_mesh_devices, rng):
 
 def test_predictor_shard_keeps_serving_knobs(cpu_mesh_devices, rng,
                                              monkeypatch):
-    """Predictor.shard must forward the FULL serving-knob surface —
-    roi_variant and the pre-packed weights used to be dropped at the
-    shard() boundary, silently serving tiled3 regardless of config."""
-    from silent_speech_tpu.infer.predictor import Predictor
-    from silent_speech_tpu.parallel import train_sharded
+    """Predictor.shard must forward the FULL serving-knob surface (precision,
+    dtype) to the sharded forward, and the sharded forward must match the
+    unsharded one."""
+    from silent_speech.infer.predictor import Predictor
+    from silent_speech.parallel import train_sharded
 
     mcfg, params = _setup()
     i2l = {i: w for i, w in enumerate(["a", "b", "c", "d", "e"])}
     p = Predictor(params=params, cfg=mcfg, id_to_label=i2l, max_t=12,
-                  roi_impl="fused", roi_variant="wide")
+                  matmul_precision="highest", compute_dtype="float32")
     seen = {}
     orig = train_sharded.make_sharded_infer_fn
 
@@ -163,13 +163,11 @@ def test_predictor_shard_keeps_serving_knobs(cpu_mesh_devices, rng,
 
     monkeypatch.setattr(train_sharded, "make_sharded_infer_fn", spy)
     p.shard(make_mesh(cpu_mesh_devices, data=4, model=2))
-    assert seen["roi_variant"] == "wide"
-    assert seen["roi_impl"] == "fused"
-    assert seen["roi_packed"] is p._roi_packed and p._roi_packed is not None
+    assert seen["compute_dtype"] == jnp.float32
+    assert seen["matmul_precision"] == "highest"
 
-    # and the sharded wide-variant forward executes + matches unsharded
     p_ref = Predictor(params=params, cfg=mcfg, id_to_label=i2l, max_t=12,
-                      roi_impl="fused", roi_variant="wide")
+                      matmul_precision="highest")
     X, lengths, roi, _y = _batch(rng, 4)
     np.testing.assert_allclose(p_ref.predict_batch(X, lengths, roi),
                                p.predict_batch(X, lengths, roi), atol=1e-5)
@@ -179,9 +177,9 @@ def test_train_loop_with_mesh(tmp_path, cpu_mesh_devices):
     """TrainConfig.mesh_shape drives the full official loop through the
     sharded DP step on the virtual mesh."""
     import jax as _jax
-    from silent_speech_tpu.core.config import TrainConfig
-    from silent_speech_tpu.data.synthetic import generate_corpus
-    from silent_speech_tpu.train import train
+    from silent_speech.core.config import TrainConfig
+    from silent_speech.data.synthetic import generate_corpus
+    from silent_speech.train import train
 
     corpus = tmp_path / "c"
     generate_corpus(str(corpus), clips_per_word=4, words=["yes", "no"], seed=9)
@@ -202,7 +200,7 @@ def test_mesh_from_shape_rejects_oversized_on_accelerator(monkeypatch):
     jax.default_device to CPU first."""
     import pytest
 
-    from silent_speech_tpu.parallel import mesh as M
+    from silent_speech.parallel import mesh as M
 
     monkeypatch.setattr(M, "_default_device_is_cpu", lambda: False)
     with pytest.raises(ValueError, match="emulate a larger mesh"):
@@ -214,7 +212,7 @@ def test_mesh_from_shape_uses_device_subset_on_larger_backend():
     the 8-virtual-CPU emulation, or a future multi-chip host) must build a
     mesh over the first `need` devices — not crash on make_mesh's
     exact-count check."""
-    from silent_speech_tpu.parallel import mesh as M
+    from silent_speech.parallel import mesh as M
 
     m = M.mesh_from_shape({"data": 4})
     assert m.devices.shape == (4, 1)
@@ -231,29 +229,7 @@ def test_mesh_from_shape_rejects_unknown_axis():
     a different mesh than the user asked for."""
     import pytest
 
-    from silent_speech_tpu.parallel import mesh as M
+    from silent_speech.parallel import mesh as M
 
     with pytest.raises(ValueError, match="unknown mesh axis"):
         M.mesh_from_shape({"dta": 8})
-
-
-def test_cli_device_pin_env(monkeypatch):
-    """SILENT_SPEECH_DEVICE=cpu pins jax.default_device to the host CPU
-    platform (the CLI's virtual-mesh emulation hook for environments where a
-    pre-registered accelerator backend ignores JAX_PLATFORMS); unknown
-    values fail loudly."""
-    import jax
-    import pytest
-
-    from silent_speech_tpu.apps.cli import _pin_device_from_env
-
-    saved = jax.config.jax_default_device
-    try:
-        monkeypatch.setenv("SILENT_SPEECH_DEVICE", "cpu")
-        _pin_device_from_env()
-        assert jax.config.jax_default_device.platform == "cpu"
-        monkeypatch.setenv("SILENT_SPEECH_DEVICE", "gpu")
-        with pytest.raises(ValueError, match="SILENT_SPEECH_DEVICE"):
-            _pin_device_from_env()
-    finally:
-        jax.config.update("jax_default_device", saved)

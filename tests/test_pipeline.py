@@ -5,13 +5,13 @@ import numpy as np
 
 import jax
 
-from silent_speech_tpu.core.config import StreamConfig
-from silent_speech_tpu.infer import SlidingWindowEngine
-from silent_speech_tpu.models.variants import (
+from silent_speech.core.config import StreamConfig
+from silent_speech.infer import SlidingWindowEngine
+from silent_speech.models.variants import (
     gru_word_classifier_forward,
     init_gru_word_classifier,
 )
-from silent_speech_tpu.runtime.pipeline import FramePacker, LivePipeline
+from silent_speech.runtime.pipeline import FramePacker, LivePipeline
 
 
 def test_packer_roundtrip(rng):

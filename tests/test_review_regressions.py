@@ -11,9 +11,9 @@ Later rounds' review findings are pinned where they naturally live:
 
 import numpy as np
 
-from silent_speech_tpu.core.config import TrainConfig, apply_overrides
-from silent_speech_tpu.data.dataset import epoch_batches
-from silent_speech_tpu.data.synthetic import generate_corpus
+from silent_speech.core.config import TrainConfig, apply_overrides
+from silent_speech.data.dataset import epoch_batches
+from silent_speech.data.synthetic import generate_corpus
 
 
 def test_eval_batches_cover_each_sample_once():
@@ -38,8 +38,8 @@ def test_mesh_shape_cli_override():
 def test_ctc_trains_on_small_corpus(tmp_path):
     """Corpus smaller than batch_size must still take training steps (the old
     range() silently ran zero steps and saved an untrained model)."""
-    from silent_speech_tpu.core.config import CTCTrainConfig
-    from silent_speech_tpu.train import train_ctc
+    from silent_speech.core.config import CTCTrainConfig
+    from silent_speech.train import train_ctc
 
     corpus = tmp_path / "c"
     generate_corpus(str(corpus), clips_per_word=3, words=["yes", "no"], seed=4)
@@ -56,7 +56,7 @@ def test_train_forward_requires_rng():
     import jax
     import jax.numpy as jnp
 
-    from silent_speech_tpu.models import bigru as model
+    from silent_speech.models import bigru as model
 
     cfg = model.BiGRUConfig(x_dim=8, num_classes=3, use_roi=False,
                             hidden=4, gru_layers=1)
@@ -69,8 +69,8 @@ def test_train_forward_requires_rng():
 
 def test_best_params_survive_no_improvement(tmp_path):
     """best_params must be a host copy, never an alias of donated buffers."""
-    from silent_speech_tpu.core.config import TrainConfig
-    from silent_speech_tpu.train import train
+    from silent_speech.core.config import TrainConfig
+    from silent_speech.train import train
 
     corpus = tmp_path / "c"
     generate_corpus(str(corpus), clips_per_word=4, words=["yes", "no"], seed=5)

@@ -7,13 +7,13 @@ import torch.nn as nn
 
 import jax
 
-from silent_speech_tpu.core.schema import load_clip
-from silent_speech_tpu.data.native_loader import load_corpus_arrays
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu.infer import Predictor, evaluate_temporal_cnn
-from silent_speech_tpu.models import bigru as model
-from silent_speech_tpu.runtime import native
-from silent_speech_tpu.train.checkpoint import reference_meta, save_checkpoint
+from silent_speech.core.schema import load_clip
+from silent_speech.data.native_loader import load_corpus_arrays
+from silent_speech.data.synthetic import generate_corpus
+from silent_speech.infer import Predictor, evaluate_temporal_cnn
+from silent_speech.models import bigru as model
+from silent_speech.runtime import native
+from silent_speech.train.checkpoint import reference_meta, save_checkpoint
 
 
 def test_load_clip_rejects_garbage(tmp_path):
@@ -73,7 +73,7 @@ def test_scan_corpus_handles_exotic_npy_version(tmp_path, rng):
     import io
     import zipfile
 
-    from silent_speech_tpu.data.corpus import scan_corpus
+    from silent_speech.data.corpus import scan_corpus
 
     X = rng.standard_normal((6, 180)).astype(np.float32)
     buf = io.BytesIO()
@@ -95,7 +95,7 @@ def test_native_loader_corrupt_roi_is_error(tmp_path, rng):
     import io
     import zipfile
 
-    from silent_speech_tpu.data.native_loader import NativeLoaderError
+    from silent_speech.data.native_loader import NativeLoaderError
 
     buf = io.BytesIO()
     np.lib.format.write_array(
@@ -148,7 +148,7 @@ def test_evaluate_temporal_cnn_legacy_path(tmp_path, rng):
                     seed=2, with_roi=False)
     torch.manual_seed(0)
     tm = TorchTemporalCNN(100, 2).eval()  # d_in 100 != corpus 180: fix_dim path
-    from silent_speech_tpu.core.torch_import import import_temporal_cnn
+    from silent_speech.core.torch_import import import_temporal_cnn
 
     params = import_temporal_cnn(tm.state_dict())
     out = evaluate_temporal_cnn(params, 100, {0: "yes", 1: "no"},
@@ -162,8 +162,8 @@ def test_native_loader_names_every_failure(tmp_path):
     """Per-file error codes surface as named reasons, not just a count."""
     import numpy as np
 
-    from silent_speech_tpu.data.native_loader import NativeLoaderError
-    from silent_speech_tpu.data.synthetic import generate_corpus
+    from silent_speech.data.native_loader import NativeLoaderError
+    from silent_speech.data.synthetic import generate_corpus
 
     corpus = tmp_path / "c"
     generate_corpus(str(corpus), clips_per_word=1, words=["yes"], seed=1)
@@ -224,8 +224,8 @@ def test_corrupt_npz_fuzz_sweep(tmp_path, rng):
     """Deterministic fuzz: random truncations/bitflips of a valid clip must
     produce named errors (native loader) or clean exceptions (schema loader),
     never crashes or silent garbage."""
-    from silent_speech_tpu.core.schema import Clip, load_clip, save_clip
-    from silent_speech_tpu.data.native_loader import (
+    from silent_speech.core.schema import Clip, load_clip, save_clip
+    from silent_speech.data.native_loader import (
         NativeLoaderError,
         load_corpus_arrays,
     )
@@ -271,7 +271,7 @@ def test_native_loader_rejects_lying_npy_shape(tmp_path):
     a named per-file failure, never an out-of-bounds read."""
     import zipfile
 
-    from silent_speech_tpu.data.native_loader import NativeLoaderError
+    from silent_speech.data.native_loader import NativeLoaderError
 
     hdr_dict = "{'descr': '<f4', 'fortran_order': False, 'shape': (4096, 180), }"
     pad = 64 - ((10 + len(hdr_dict)) % 64)
@@ -305,7 +305,7 @@ def test_native_loader_rejects_overflowing_npy_shape(tmp_path):
     not wrap around it."""
     import zipfile
 
-    from silent_speech_tpu.data.native_loader import NativeLoaderError
+    from silent_speech.data.native_loader import NativeLoaderError
 
     hdr_dict = ("{'descr': '<f4', 'fortran_order': False, "
                 "'shape': (4294967295, 4294967295), }")
@@ -365,7 +365,7 @@ def test_native_loader_truncated_central_directory(tmp_path, rng):
     corrupt-container error (-2), never an out-of-bounds read."""
     import zipfile
 
-    from silent_speech_tpu.data.native_loader import NativeLoaderError
+    from silent_speech.data.native_loader import NativeLoaderError
 
     path = str(tmp_path / "synth_yes_1700000000_0001.npz")
     np.savez(path, X=rng.standard_normal((6, 180)).astype(np.float32))
@@ -391,7 +391,7 @@ def test_native_loader_crc_mismatch_is_error(tmp_path, rng):
     silent garbage (round-4 divergence fix)."""
     import zipfile
 
-    from silent_speech_tpu.data.native_loader import NativeLoaderError
+    from silent_speech.data.native_loader import NativeLoaderError
 
     X = rng.standard_normal((6, 180)).astype(np.float32)
     import io
@@ -420,7 +420,7 @@ def test_native_loader_exotic_method_falls_back_named(tmp_path, rng):
     the failure is named per-file, never a crash or silent zeros."""
     import zipfile
 
-    from silent_speech_tpu.data.native_loader import NativeLoaderError
+    from silent_speech.data.native_loader import NativeLoaderError
 
     path = str(tmp_path / "synth_yes_1700000000_0003.npz")
     np.savez(path, X=rng.standard_normal((6, 180)).astype(np.float32))
@@ -443,7 +443,7 @@ def test_native_loader_garbage_deflate_stream(tmp_path, rng):
     garbage must fail inflate as a named -3, not crash zlib."""
     import zipfile
 
-    from silent_speech_tpu.data.native_loader import NativeLoaderError
+    from silent_speech.data.native_loader import NativeLoaderError
 
     path = str(tmp_path / "synth_yes_1700000000_0004.npz")
     np.savez_compressed(path, X=rng.standard_normal((64, 180))

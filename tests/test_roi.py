@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
-from silent_speech_tpu.ops.roi import (
+from silent_speech.ops.roi import (
     crop_resize_gray_batched,
     make_resize_matrix,
 )
@@ -108,7 +108,7 @@ def test_host_frame_path_equals_device_kernel(rng):
     """crop_resize_gray_frame_host (the capture-loop path, pure numpy) must
     equal crop_resize_gray_batched bit-for-bit, including the degenerate-box
     convention."""
-    from silent_speech_tpu.ops.roi import (
+    from silent_speech.ops.roi import (
         crop_resize_gray_batched,
         crop_resize_gray_frame_host,
     )

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 
 cv2 = pytest.importorskip("cv2")
 
-from silent_speech_tpu.ops.roi import (  # noqa: E402
+from silent_speech.ops.roi import (  # noqa: E402
     crop_resize_gray_batched,
     make_resize_matrix,
 )
@@ -107,7 +107,7 @@ def test_camera_probe_with_real_cv2_fails_cleanly():
     """CameraSource's index-fallback probing executes against real OpenCV
     (no camera device in this env) and raises the clean RuntimeError rather
     than crashing inside cv2."""
-    from silent_speech_tpu.runtime.capture import CameraSource
+    from silent_speech.runtime.capture import CameraSource
 
     with pytest.raises(RuntimeError, match="Could not open camera"):
         CameraSource(37, fallbacks=(38, 39))

@@ -7,11 +7,11 @@ import threading
 import numpy as np
 import pytest
 
-from silent_speech_tpu.core.schema import fix_dim, load_clip
-from silent_speech_tpu.data.native_loader import load_corpus_arrays
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu.runtime import native
-from silent_speech_tpu.runtime.ringbuf import FrameRing
+from silent_speech.core.schema import fix_dim, load_clip
+from silent_speech.data.native_loader import load_corpus_arrays
+from silent_speech.data.synthetic import generate_corpus
+from silent_speech.runtime import native
+from silent_speech.runtime.ringbuf import FrameRing
 
 
 def test_ringbuf_fifo_and_drop():
@@ -73,7 +73,7 @@ def test_landmarker_asset_resolution(tmp_path, monkeypatch):
     camera user hits, reference record_landmarks_official.py:150-154)."""
     import os
 
-    from silent_speech_tpu.runtime.capture import (
+    from silent_speech.runtime.capture import (
         LANDMARKER_ENV,
         LANDMARKER_URL,
         resolve_landmarker_asset,
@@ -91,7 +91,7 @@ def test_landmarker_asset_resolution(tmp_path, monkeypatch):
 
     # 3. repo-root-relative fallback (the reference's hardcoded layout)
     monkeypatch.delenv(LANDMARKER_ENV, raising=False)
-    import silent_speech_tpu.runtime.capture as capture_mod
+    import silent_speech.runtime.capture as capture_mod
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(capture_mod.__file__))))
     rel = "models/_test_landmarker_asset.task"
@@ -119,7 +119,7 @@ def test_landmarker_session_smoke():
     (reference record_landmarks_official.py:150-154,163,172-174)."""
     pytest.importorskip("mediapipe")
     pytest.importorskip("cv2")
-    from silent_speech_tpu.runtime.capture import (
+    from silent_speech.runtime.capture import (
         FaceLandmarkerSession,
         resolve_landmarker_asset,
     )
@@ -174,8 +174,8 @@ def test_play_audio_spawns_player_on_real_asset(monkeypatch):
     the files themselves are checked for a valid MP3 sync header."""
     import os
 
-    from silent_speech_tpu.apps.live import BOOM_PATH, FAH_PATH
-    from silent_speech_tpu.runtime import capture
+    from silent_speech.apps.live import BOOM_PATH, FAH_PATH
+    from silent_speech.runtime import capture
 
     spawned = []
 

@@ -6,13 +6,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from silent_speech_tpu.core.torch_export import (
+from silent_speech.core.torch_export import (
     export_bigru_classifier,
     export_reference_checkpoint,
 )
-from silent_speech_tpu.core.torch_import import import_bigru_classifier
-from silent_speech_tpu.infer import Predictor
-from silent_speech_tpu.models import bigru as model
+from silent_speech.core.torch_import import import_bigru_classifier
+from silent_speech.infer import Predictor
+from silent_speech.models import bigru as model
 
 
 def test_export_import_roundtrip(rng):

@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from silent_speech_tpu.core.config import TrainConfig
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu.models import bigru as model
-from silent_speech_tpu.train import (
+from silent_speech.core.config import TrainConfig
+from silent_speech.data.synthetic import generate_corpus
+from silent_speech.models import bigru as model
+from silent_speech.train import (
     load_checkpoint,
     make_optimizer,
     save_checkpoint,
@@ -44,8 +44,8 @@ def test_one_step_training_parity():
     """
     import torch
 
-    from silent_speech_tpu.core.torch_import import import_bigru_classifier
-    from silent_speech_tpu.train.step import (
+    from silent_speech.core.torch_import import import_bigru_classifier
+    from silent_speech.train.step import (
         StepConfig,
         make_batch_train_step,
     )
@@ -123,8 +123,8 @@ def test_multi_step_training_parity():
     clip-then-step interaction (train_model_official.py:426-439)."""
     import torch
 
-    from silent_speech_tpu.core.torch_import import import_bigru_classifier
-    from silent_speech_tpu.train.step import (
+    from silent_speech.core.torch_import import import_bigru_classifier
+    from silent_speech.train.step import (
         StepConfig,
         make_batch_train_step,
     )
@@ -185,8 +185,8 @@ def test_multi_step_scan_matches_sequential_steps():
     the SAME training trajectory as K sequential make_train_step dispatches
     from the same starting rng — the scan body is the step body verbatim,
     so only XLA fusion/reassociation differences are allowed."""
-    from silent_speech_tpu.data.augment import AugmentConfig
-    from silent_speech_tpu.train.step import (
+    from silent_speech.data.augment import AugmentConfig
+    from silent_speech.train.step import (
         StepConfig, make_multi_train_step, make_train_step)
 
     mcfg = model.BiGRUConfig(x_dim=12, num_classes=4, use_roi=True, hidden=8,
@@ -355,7 +355,7 @@ def test_train_host_data_path(tmp_path):
 def test_roi_remat_identical_gradients():
     """roi_remat=True (recompute ROI-CNN activations in the backward) must
     produce exactly the gradients of the stored-activation path — it is a
-    pure memory/traffic transform (docs/TRAIN_PERF.md)."""
+    pure memory/traffic transform."""
     mcfg = model.BiGRUConfig(x_dim=16, num_classes=3, use_roi=True, hidden=8,
                              roi_emb=4, head_hidden=8)
     params = model.init_params(jax.random.PRNGKey(0), mcfg)

@@ -1,8 +1,8 @@
 """CTC training pipeline smoke + checkpoint metadata contract."""
 
-from silent_speech_tpu.core.config import CTCTrainConfig
-from silent_speech_tpu.data.synthetic import generate_corpus
-from silent_speech_tpu.train import load_checkpoint, train_ctc
+from silent_speech.core.config import CTCTrainConfig
+from silent_speech.data.synthetic import generate_corpus
+from silent_speech.train import load_checkpoint, train_ctc
 
 
 def test_ctc_training_runs_and_checkpoints(tmp_path):

@@ -7,9 +7,9 @@ import torch.nn as nn
 import jax
 import jax.numpy as jnp
 
-from silent_speech_tpu.core import torch_import as ti
-from silent_speech_tpu.models import variants as V
-from silent_speech_tpu.models import ctc_model as C
+from silent_speech.core import torch_import as ti
+from silent_speech.models import variants as V
+from silent_speech.models import ctc_model as C
 
 
 def test_temporal_cnn_parity(rng):
@@ -157,7 +157,7 @@ class _TorchCTCRoi(nn.Module):
 
 class _TorchCTC(nn.Module):
     """Test fixture from spec: inactive/train_model.py:141-164
-    BiGRUCTCWithROI (module-level so scripts/tpu_parity_check.py can audit
+    BiGRUCTCWithROI (module-level so other checks can audit
     the CTC family on-chip too)."""
 
     def __init__(self, x_dim, hidden=192, num_classes=27):
